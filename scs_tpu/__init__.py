@@ -1,4 +1,4 @@
-"""scs_tpu — a TPU-native conic quadratic-program solver framework.
+"""scs_tpu — a JAX conic quadratic-program solver framework.
 
 Solves   minimize    (1/2) x'Px + c'x
          subject to  Ax + s = b,  s in K
@@ -6,9 +6,9 @@ Solves   minimize    (1/2) x'Px + c'x
 for K a product of zero, nonnegative, box, second-order, PSD (real and
 complex), exponential, power, and spectral (logdet / nuclear / ell1 /
 sum-of-largest) cones — the capability surface of the reference scs-python
-package, re-designed TPU-first: dense-block batched linear algebra on the
-MXU, jit-compiled ADMM loops, vmap/pjit scenario batching, and matrix-free
-CG for large problems.
+package, re-designed for accelerators: dense-block batched linear algebra,
+jit-compiled ADMM loops, vmap/sharded scenario batching, and matrix-free
+CG (dense or block-ELL sparse) for large problems.
 """
 
 import jax as _jax
@@ -18,10 +18,10 @@ import jax as _jax
 # in float32 when requested via Settings.dtype.
 _jax.config.update("jax_enable_x64", True)
 
-# NOTE on matmul precision: on TPU, float32 matmuls default to bfloat16 MXU
-# passes (~1e-2 relative error) — fatal for an iterative solver whose linear
-# projection must be accurate to ~1e-6 (the DR iteration stalls at the matmul
-# noise floor). The solver pins "highest" precision at TRACE time inside its
+# NOTE on matmul precision: at default precision XLA may run float32 matmuls
+# in TF32 on NVIDIA GPUs (~1e-3 relative error) — fatal for an iterative
+# solver whose linear projection must be accurate to ~1e-6 (the DR iteration
+# stalls at the matmul noise floor). The solver pins "highest" precision at TRACE time inside its
 # own compiled functions (solver._hp) rather than mutating the process-global
 # jax_default_matmul_precision config, so host applications embedding the
 # solver keep their own matmul precision/perf trade-offs.

@@ -72,7 +72,7 @@ class CsvLogger:
 
 
 HEADER = r"""------------------------------------------------------------------
-             scs_tpu v{version} - TPU-native conic solver
+             scs_tpu v{version} - JAX conic solver
          (c) re-designed from SCS, Brendan O'Donoghue, 2012
 ------------------------------------------------------------------
 problem:  variables n: {n}, constraints m: {m}

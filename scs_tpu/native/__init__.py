@@ -2,8 +2,8 @@
 
 Counterpart of the reference's native runtime layer around its compute
 core (scs_source/linsys/scs_matrix.c, csparse.c for CSC plumbing and
-scs_source/src/rw.c for binary problem serialization). The TPU compute
-path stays in JAX/XLA/Pallas; this layer covers the host-side data
+scs_source/src/rw.c for binary problem serialization). The device
+compute path stays in JAX/XLA; this layer covers the host-side data
 plumbing where the reference also uses native code.
 
 The shared library is compiled from csc_ops.cpp on first use with g++
@@ -205,7 +205,7 @@ def csc_rmatvec(A, x) -> np.ndarray:
 
 
 def pack_block_ell(A, block_size: int):
-    """Pack a scipy CSC matrix into TPU-friendly block-ELL form.
+    """Pack a scipy CSC matrix into block-ELL form.
 
     Returns (blocks, cols) with blocks: (nbr, width, bs, bs) f64 and
     cols: (nbr, width) i64 block-column ids (padding slots point at

@@ -1,13 +1,13 @@
 // Native host-side runtime kernels for scs_tpu.
 //
-// This is the TPU framework's counterpart of the reference's native
+// This is the framework's counterpart of the reference's native
 // runtime layer around the compute core:
 //   * CSC matrix utilities (reference: scs_source/linsys/scs_matrix.c,
 //     csparse.c — validation, SpMV, dense assembly used by the bridge)
 //   * binary problem serialization (reference: scs_source/src/rw.c,
 //     write_data_filename path, scs/scsobject.h:493)
 //
-// The TPU compute path (projections, DR loop, factorizations) lives in
+// The device compute path (projections, DR loop, factorizations) lives in
 // JAX/XLA/Pallas; these kernels cover the host-side data plumbing where
 // the reference also uses native code. Exposed via a plain C ABI and
 // loaded with ctypes (no pybind11 in the build image).
@@ -65,7 +65,7 @@ void csc_to_dense(int64_t m, int64_t n, const double* data,
 }
 
 // Symmetric dense assembly from an upper-triangular CSC P (row-major n x n):
-// fills both triangles (the TPU path wants the full symmetric matrix).
+// fills both triangles (the device path wants the full symmetric matrix).
 void csc_triu_to_dense_sym(int64_t n, const double* data,
                            const int64_t* indices, const int64_t* indptr,
                            double* out) {

@@ -1,4 +1,4 @@
-"""Data equilibration (Ruiz-style) — TPU-native counterpart of the
+"""Data equilibration (Ruiz-style) — the on-device counterpart of the
 reference's src/normalize.c + linsys/scs_matrix.c scaling.
 
 Transform (self-consistent; derivation in solver.py docstring):

@@ -1,8 +1,8 @@
-"""Compensated f32 linear algebra for high-accuracy solves on TPU.
+"""Compensated f32 linear algebra for high-accuracy solves in f32.
 
-XLA:TPU has no native f64 (compiling f64 solver loops crashes libtpu —
-see settings dtype policy), so eps<=1e-6 work needs f32 arithmetic whose
-ERROR is tracked and corrected. The technique is Dekker splitting: each
+eps<=1e-6 work in f32 needs arithmetic whose ERROR is tracked and
+corrected (the f32 solve path; native f64 is the other route, and which
+one an H100 cell favours is ROADMAP design item 3). The technique is Dekker splitting: each
 f32 product a*b is written as p + err with p = fl(a*b) and err exact
 (computable in f32 without FMA by splitting both operands into 12-bit
 halves). Summing the p-stream and err-stream separately with XLA's tree
@@ -12,8 +12,8 @@ product rounding — versus ~n-dependent error for the plain matvec.
 Used by the solver for residual evaluation and iterative-refinement
 residuals when tolerances are tighter than f32 matvecs can certify
 (Core.hi_acc; VERDICT r4 item 5). Bandwidth cost is identical to the
-plain matvec (same reads); compute is ~8x, irrelevant off the MXU at
-check frequency.
+plain matvec (same reads); compute is ~8x, irrelevant at check
+frequency.
 
 Reference for the algorithms: Dekker (1971) / Ogita-Rump-Oishi error-free
 transformations — public-domain numerics, no reference-repo counterpart

@@ -1,10 +1,9 @@
 """Scenario-batch sharding over a device mesh.
 
 The reference's concurrency model is many solver instances on many OS
-threads (free-threaded CPython, SURVEY.md §2.5). The TPU-native
-replacement: a batch of problems laid out over a `jax.sharding.Mesh` —
-data-parallel over the batch axis (ICI within a slice, DCN across hosts),
-with every solver step jit-partitioned by XLA.
+threads (free-threaded CPython, SURVEY.md §2.5). The replacement here: a
+batch of problems laid out over a 1-D `jax.sharding.Mesh` — data-parallel
+over the batch axis, with every solver step jit-partitioned by XLA.
 """
 
 from __future__ import annotations

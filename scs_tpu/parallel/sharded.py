@@ -1,7 +1,7 @@
 """Single-problem solve with the constraint matrix row-sharded across a
-device mesh — the TPU-native replacement for the reference's multithreaded
-sparse direct backend on ONE giant problem (SURVEY.md §2.4 "TPU mapping":
-row-block-sharded A + psum-CG over ICI replaces multithreaded Pardiso,
+device mesh — the replacement for the reference's multithreaded sparse
+direct backend on ONE giant problem (SURVEY.md §2.4: row-block-sharded A
++ psum-CG across devices replaces multithreaded Pardiso,
 meson.build:315-348).
 
 Design: the full DR loop (linear projection, cone projection, Anderson
@@ -10,7 +10,7 @@ program under the mesh. Only `A` carries a non-trivial sharding
 (PartitionSpec('rows', None)); every iterate vector is replicated. XLA's
 SPMD partitioner then places the collectives exactly where the math needs
 them: `A @ x` computes local row blocks (no communication), `A.T @ y`
-reduces partial (n,)-results with an all-reduce that rides the ICI ring —
+reduces partial (n,)-results with an all-reduce between devices —
 the same communication pattern as `sharded_cg.sharded_cg_solve`, but
 integrated into the solver instead of a standalone kernel.
 

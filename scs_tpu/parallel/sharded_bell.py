@@ -7,7 +7,7 @@ Layout (built by ops.sparse.pack_bell_sharded): device d holds the
 block-ELL pack of its contiguous row slice A_d AND the pack of A_d^T.
 Every iterate vector is replicated; the two operator touches communicate:
 
-    A @ x    : local SpMV (Pallas on TPU), then all_gather of the (m,)
+    A @ x    : local SpMV, then all_gather of the (m,)
                result over the 'rows' axis
     A^T @ y  : dynamic-slice the local y rows by axis index, local SpMV
                of the transposed pack, then psum of the (n,) partials
@@ -117,7 +117,7 @@ class ShardedBellCore(Core):
         return arr[0]
 
     def _Ax(self, mats: Mats, x):
-        from ..ops.sparse import bell_spmv, bell_spmv_ref  # noqa: PLC0415
+        from ..ops.sparse import bell_spmv_ref  # noqa: PLC0415
 
         bell = mats.bell
         blocks = self._local_pack(bell.A_blocks)
@@ -125,14 +125,13 @@ class ShardedBellCore(Core):
         bs = blocks.shape[-1]
         n_pad = bell.At_blocks.shape[1] * bs
         x_pad = jnp.zeros(n_pad, x.dtype).at[: self.n].set(x)
-        f = bell_spmv if self._pallas_ok() else bell_spmv_ref
-        y_loc = f(blocks, cols, x_pad)  # (m_loc,)
+        y_loc = bell_spmv_ref(blocks, cols, x_pad)  # (m_loc,)
         # m is a multiple of n_dev*bs by construction (ShardedSCS pads),
         # so the tiled gather reassembles exactly the (m,) vector
         return lax.all_gather(y_loc, self.axis, tiled=True)
 
     def _ATy(self, mats: Mats, y):
-        from ..ops.sparse import bell_spmv, bell_spmv_ref  # noqa: PLC0415
+        from ..ops.sparse import bell_spmv_ref  # noqa: PLC0415
 
         bell = mats.bell
         blocks = self._local_pack(bell.At_blocks)
@@ -141,8 +140,7 @@ class ShardedBellCore(Core):
         m_loc = bell.A_blocks.shape[1] * bs
         d = lax.axis_index(self.axis)
         y_loc = lax.dynamic_slice(y, (d * m_loc,), (m_loc,))
-        f = bell_spmv if self._pallas_ok() else bell_spmv_ref
-        t = f(blocks, cols, y_loc)[: self.n]
+        t = bell_spmv_ref(blocks, cols, y_loc)[: self.n]
         return lax.psum(t, self.axis)
 
     def _Px(self, mats: Mats, x):
@@ -150,7 +148,7 @@ class ShardedBellCore(Core):
         of this device's row slice of the symmetric pack, then a tiled
         all-gather over the rows axis — identical communication to _Ax
         (symmetry makes the transpose orientation unnecessary)."""
-        from ..ops.sparse import bell_spmv, bell_spmv_ref  # noqa: PLC0415
+        from ..ops.sparse import bell_spmv_ref  # noqa: PLC0415
 
         pb = mats.pbell
         blocks = self._local_pack(pb.blocks)  # (nbr_loc, w, bs, bs)
@@ -158,6 +156,5 @@ class ShardedBellCore(Core):
         bs = blocks.shape[-1]
         n_pad_cols = -(-self.n // bs) * bs  # packer's column padding
         x_pad = jnp.zeros(n_pad_cols, x.dtype).at[: self.n].set(x)
-        f = bell_spmv if self._pallas_ok() else bell_spmv_ref
-        y_loc = f(blocks, cols, x_pad)  # (n_loc,) local rows of P @ x
+        y_loc = bell_spmv_ref(blocks, cols, x_pad)  # (n_loc,) local rows of P @ x
         return lax.all_gather(y_loc, self.axis, tiled=True)[: self.n]

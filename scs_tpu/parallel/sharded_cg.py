@@ -1,7 +1,7 @@
-"""Row-block-sharded conjugate gradient over ICI — the TPU-native
-replacement for the reference's multithreaded sparse solves on a SINGLE
-giant problem (SURVEY.md §2.4 "TPU mapping": row-block-sharded A with
-psum-based CG over ICI replaces multithreaded Pardiso).
+"""Row-block-sharded conjugate gradient across devices — the replacement
+for the reference's multithreaded sparse solves on a SINGLE giant problem
+(SURVEY.md §2.4: row-block-sharded A with psum-based CG replaces
+multithreaded Pardiso).
 
 Layout: A is sharded (m_local, n) per device along a 'rows' mesh axis;
 x, rhs, and P are replicated. One CG step:
@@ -10,8 +10,8 @@ x, rhs, and P are replicated. One CG step:
     t = A.T @ (dy_local * q)  # local partial (n,), then psum over 'rows'
     Sx = rho_x*x + P@x + psum(t)
 
-so each CG iteration costs exactly one psum of an (n,) vector — the
-all-reduce rides the ICI ring.
+so each CG iteration costs exactly one psum of an (n,) vector (an
+all-reduce that XLA hands to NCCL on GPUs).
 """
 
 from __future__ import annotations

@@ -218,7 +218,7 @@ def test_validation_errors():
 
 def test_dense_A_rejected_by_default():
     # reference parity: a dense ndarray A raises TypeError unless the
-    # TPU-native extension allow_dense_input=True is requested
+    # package extension allow_dense_input=True is requested
     # (reference scs/py/__init__.py:117-118)
     Ad = np.array([[1.0], [-1.0]])
     b = np.array([1.0, 0.0])

@@ -1,9 +1,9 @@
 """End-to-end solve through the block-ELL matrix-free strategy
 ("bell"): same problems as the direct path, answers must agree.
 
-On CPU the SpMV runs through the jnp reference kernel; the Pallas TPU
-kernel is numerically identical (tested in test_sparse_ops via interpret
-mode) and exercised on hardware by the bench/verify drives."""
+The SpMV is the one plain-jnp block-ELL product (ops.sparse.bell_spmv_ref,
+tested against scipy in test_sparse_ops); chip_smoke.py runs the same
+paths on the GPU."""
 
 import numpy as np
 import pytest

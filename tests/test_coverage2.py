@@ -1,5 +1,5 @@
 """Coverage tranche 2 (VERDICT r3 item 6): the next slice of the
-reference's test_scs_coverage.py surface, adapted to the TPU-native API.
+reference's test_scs_coverage.py surface, adapted to this package's API.
 
 Sections covered here (reference file = /root/reference/test/
 test_scs_coverage.py): input validation & canonicalization, cone-field

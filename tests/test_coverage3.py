@@ -2,7 +2,7 @@
 status codes, duality/residual invariants, and edge-case matrices from
 the reference's test_scs_coverage.py sections (box :563-632, SOC :1055,
 zero :805, status codes :862-904, strong duality :1293, zero-A :2980) —
-written against the TPU-native API, cited per test."""
+written against this package's API, cited per test."""
 
 import numpy as np
 import pytest

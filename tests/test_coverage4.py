@@ -2,10 +2,10 @@
 AUTO-dispatch mock family (test_scs_coverage.py:3237-3321), file-output
 edge cases (:3055-3069), and a settings x strategy matrix.
 
-The reference mocks module imports to test backend fallback; the TPU
-build's dispatch axis is the strategy resolver (api._resolve_strategy +
+The reference mocks module imports to test backend fallback; this
+package's dispatch axis is the strategy resolver (api._resolve_strategy +
 the measured block-ELL cost model api._block_ell_stats), so the mocks
-patch those instead — same contract, TPU-native mechanism.
+patch those instead — same contract, this package's mechanism.
 """
 
 import os
@@ -47,8 +47,8 @@ def _tiny_qp(m=24, n=16, seed=0):
 
 
 def test_every_reference_backend_name_resolves():
-    """All 8 reference LinearSolver names + 2 TPU names map onto the two
-    TPU strategies (reference scs/py/__init__.py:28-37 name parity)."""
+    """All 8 reference LinearSolver names + 2 package names map onto the
+    two strategies (reference scs/py/__init__.py:28-37 name parity)."""
     expected = {
         LinearSolver.QDLDL: "direct",
         LinearSolver.MKL: "direct",

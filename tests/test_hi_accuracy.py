@@ -1,6 +1,6 @@
 """High-accuracy (eps<=1e-6) float32 solves via compensated residuals
-(VERDICT r4 item 5): on TPU there is no f64, so tight tolerances rely on
-double-f32 residual evaluation + compensated-refinement linear solves
+(VERDICT r4 item 5): in f32, tight tolerances rely on double-f32
+residual evaluation + compensated-refinement linear solves
 (scs_tpu/ops/df32.py, Core.hi_acc). These tests run the same machinery
 on CPU-f32 and check against CPU-f64 ground truth."""
 

@@ -4,8 +4,7 @@ Until round 5, every f32 solve touching the exp cone FAILED with NaN: the
 projection kernels guarded logs with a literal 1e-300, which underflows to
 0.0 in float32 (log(0) = -inf), and the inner Newton parked overshooting
 iterates on that denormal instead of halving (oracle inner_z semantics).
-f32 is the ONLY dtype available on TPU, so the whole cone zoo beyond
-zero/nonneg was dead on the target hardware. These tests pin the fixes at
+so the whole cone zoo beyond zero/nonneg was dead in f32. These tests pin the fixes at
 the kernel level (NaN-freedom + near-optimality vs the oracle across input
 scales in BOTH dtypes) and end-to-end (batched mixed-cone solve in f32).
 """
@@ -87,7 +86,7 @@ def test_pow_proj_f32_finite_and_near_optimal(dtype, a):
 
 def test_batched_mixed_cone_f32_solves():
     """End-to-end: the reference mixed-cone K (SOC+PSD+exp+pow) as an f32
-    batch — the TPU configuration. Requires the cone-aware refinement
+    batch — the bench's configuration. Requires the cone-aware refinement
     default (simple-cone batches keep 0 passes; curved cones get the f32
     pass without which this batch runs to max_iters)."""
     from scs_tpu.batch import solve_batch

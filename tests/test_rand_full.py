@@ -5,7 +5,7 @@ strategy, reference K and seeds 1000/1001/1002, opts at
 counts with the SDP-heavy K including 10x10 and 8x8 PSD blocks).
 
 The reference's backend matrix [AUTO, QDLDL, CPU_INDIRECT] maps onto the
-TPU strategies [direct, indirect] (SURVEY.md §2.4); unbounded detection is
+package's strategies [direct, indirect] (SURVEY.md §2.4); unbounded detection is
 direct-only, mirroring the reference's known-flaky indirect skip
 (test_scs_rand.py:113-114).
 """

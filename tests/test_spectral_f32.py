@@ -1,7 +1,7 @@
 """f32 spectral-cone kernels (round 5): the same dtype-robustness class
 as the exp/pow fixes in test_mixed_cone_f32.py — every log/division
-guard used to be a literal 1e-300, which is 0.0 in float32, and f32 is
-the only dtype on the TPU. These sweeps pin NaN-freedom and
+guard used to be a literal 1e-300, which is 0.0 in float32. These
+sweeps pin NaN-freedom and
 near-optimality vs the oracle for the four spectral cones (logdet,
 nuclear, ell1, sum-of-k-largest) in BOTH dtypes; before r5 they were
 exercised in f64 only (test_rand_full / test_coverage epigraph tests).
@@ -102,8 +102,8 @@ def test_logdet_f32(dtype):
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.float64])
 def test_psd_and_csd_f32(dtype):
     """Batched eigh-based projections stay finite and idempotent in f32
-    (the TPU dtype for the PSD path — first covered on hardware via the
-    bench's mixed_cone block, pinned here for CPU CI)."""
+    (the bench's dtype for the PSD path, also run on the GPU via the
+    bench's mixed_cone block; pinned here for CPU CI)."""
     rng = np.random.RandomState(11)
     nn = 6
     sz = sd_cone_size(nn)
